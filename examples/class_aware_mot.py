@@ -10,7 +10,7 @@ signal that disambiguates; cfg.class_aware gates the cross-class match
 infeasible and identity survives.  Scored with CLEAR-MOT and HOTA side
 by side, class gate on vs off.
 
-Runs anywhere (CPU or TPU):
+Runs anywhere (CPU or GPU):
     python examples/class_aware_mot.py
 """
 
@@ -25,11 +25,11 @@ import numpy as np
 def main() -> None:
     import jax.numpy as jnp
 
-    from tpu_mot.config import TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import bank as bank_mod
-    from tpu_mot.tracker import scan
-    from tpu_mot.utils import metrics
+    from jaxmot.config import TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import bank as bank_mod
+    from jaxmot.tracker import scan
+    from jaxmot.utils import metrics
 
     h, w, n_frames = 240, 320, 40
     speed, meet, y = 4.0, 160.0, 120.0
@@ -63,11 +63,11 @@ def main() -> None:
                         (True, "best")):
         cfg = TrackerConfig(max_tracks=16, max_detections=16,
                             frame_height=h, frame_width=w, n_init=2,
-                            roi_impl="xla", class_aware=aware,
+                            class_aware=aware,
                             assoc_box=abox)
         d = np.zeros((n_frames, 16, 6), np.float32)
         v = np.zeros((n_frames, 16), bool)
-        from tpu_mot.tracker.api import pad_detections
+        from jaxmot.tracker.api import pad_detections
         for f in range(n_frames):
             d[f], v[f] = pad_detections(dets_list[f], 16)
         dj = jnp.asarray(d if aware else d[..., :5])

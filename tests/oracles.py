@@ -1,7 +1,8 @@
 """NumPy oracles implementing the published equations, independent of JAX.
 
-Parity targets for the TPU implementations (SURVEY.md §4.1): KCF per
-arXiv:1404.7584 (eqs. 17, 22, 31), constant-velocity Kalman, SciPy Hungarian.
+Parity targets for the JAX implementations (SURVEY.md §4.1): bilinear ROI
+sampling, KCF per arXiv:1404.7584 (eqs. 17, 22, 31), constant-velocity
+Kalman, SciPy Hungarian.
 Everything here is deliberately scalar/loopy NumPy — the point is an
 independent derivation from the papers, not speed.
 """
@@ -9,6 +10,43 @@ independent derivation from the papers, not speed.
 from __future__ import annotations
 
 import numpy as np
+
+
+# ----------------------------------------------------------------------
+# ROI oracle: float64 bilinear crop + resize
+# ----------------------------------------------------------------------
+
+def roi_patch(gray, box, padding, size, scale=1.0):
+    """Bilinear crop of one (cx, cy, w, h) box's context window, resized
+    to [size, size], matching jaxmot.ops.patch.extract_patches: the
+    window spans padding * max(w, 1) x padding * max(h, 1) (times
+    scale), pixel-center sampling, coordinates clamped to the frame
+    (border replication)."""
+    gray = np.asarray(gray, np.float64)
+    cx, cy, w, h = (float(v) for v in box)
+    w = max(w, 1.0) * scale
+    h = max(h, 1.0) * scale
+    u = (np.arange(size) + 0.5) / size - 0.5
+    ys = np.clip(cy + u * h * padding, 0, gray.shape[0] - 1.0)
+    xs = np.clip(cx + u * w * padding, 0, gray.shape[1] - 1.0)
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    y1 = np.minimum(y0 + 1, gray.shape[0] - 1)
+    x1 = np.minimum(x0 + 1, gray.shape[1] - 1)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    return (gray[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+            + gray[np.ix_(y0, x1)] * (1 - fy) * fx
+            + gray[np.ix_(y1, x0)] * fy * (1 - fx)
+            + gray[np.ix_(y1, x1)] * fy * fx)
+
+
+def roi_patches(gray, boxes, padding, size, scales=None):
+    """roi_patch over a [T, 4] box bank (optional [T] scales) →
+    [T, size, size] float64."""
+    scales = np.ones(len(boxes)) if scales is None else scales
+    return np.stack([roi_patch(gray, b, padding, size, sc)
+                     for b, sc in zip(boxes, scales)])
 
 
 # ----------------------------------------------------------------------
@@ -58,25 +96,8 @@ class KCFOracle:
         self.alphaf = None
 
     def get_patch(self, gray, box, scale=1.0):
-        """Bilinear crop matching tpu_mot.ops.patch.extract_patches."""
-        cx, cy, w, h = box
-        w = max(w, 1.0) * scale
-        h = max(h, 1.0) * scale
-        s = self.size
-        u = (np.arange(s) + 0.5) / s - 0.5
-        ys = np.clip(cy + u * h * self.padding, 0, gray.shape[0] - 1.0)
-        xs = np.clip(cx + u * w * self.padding, 0, gray.shape[1] - 1.0)
-        y0 = np.floor(ys).astype(int)
-        x0 = np.floor(xs).astype(int)
-        y1 = np.minimum(y0 + 1, gray.shape[0] - 1)
-        x1 = np.minimum(x0 + 1, gray.shape[1] - 1)
-        fy = (ys - y0)[:, None]
-        fx = (xs - x0)[None, :]
-        v = (gray[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
-             + gray[np.ix_(y0, x1)] * (1 - fy) * fx
-             + gray[np.ix_(y1, x0)] * fy * (1 - fx)
-             + gray[np.ix_(y1, x1)] * fy * fx)
-        return v
+        """Bilinear crop matching jaxmot.ops.patch.extract_patches."""
+        return roi_patch(gray, box, self.padding, self.size, scale)
 
     def features(self, patch):
         return ((patch - 0.5) * self.hann)[None]

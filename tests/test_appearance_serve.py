@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.data import synthetic
-from tpu_mot.tracker.api import MultiTracker, pad_detections
-from tpu_mot.utils import metrics
+from jaxmot.config import TrackerConfig
+from jaxmot.data import synthetic
+from jaxmot.tracker.api import MultiTracker, pad_detections
+from jaxmot.utils import metrics
 
 
 def _scene(**kw):
@@ -50,9 +50,9 @@ def test_appearance_term_works():
 def test_detect_then_track_serving():
     """parallel.serve.detect_then_track_step with a real (random-weight)
     YOLO detector over multiple streams."""
-    from tpu_mot.parallel import mesh as mesh_mod, serve
-    from tpu_mot.models.detector import YoloDetector, detect_batch
-    from tpu_mot.models.yolo import YoloSpec, YOLOV2_TINY_ANCHORS
+    from jaxmot.parallel import mesh as mesh_mod, serve
+    from jaxmot.models.detector import YoloDetector, detect_batch
+    from jaxmot.models.yolo import YoloSpec, YOLOV2_TINY_ANCHORS
     import functools
 
     ndev = min(len(jax.devices()), 4)
@@ -60,7 +60,7 @@ def test_detect_then_track_serving():
                     anchors=YOLOV2_TINY_ANCHORS)
     det = YoloDetector.random_init(spec, max_out=8, score_thr=0.0)
     cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=64,
-                        frame_width=64, roi_impl="xla", n_init=1)
+                        frame_width=64, n_init=1)
     m = mesh_mod.stream_mesh(ndev)
     banks = serve.make_stream_banks(ndev, cfg, m)
     frames = jnp.asarray(

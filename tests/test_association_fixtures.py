@@ -1,8 +1,8 @@
-"""Adversarial association fixtures (VERDICT r2 next #5): scenarios where
+"""Adversarial association fixtures: scenarios where
 motion-only (IoU/Kalman) association demonstrably mis-assigns, codifying
 the evidence behind the appearance_weight=0.0 default.
 
-Finding (tools/sweep_appearance.py, log tools/sweep_appearance_r3.log):
+Finding (tools/sweep_appearance.py):
 appearance INFORMATION matters — distinct-texture crossings keep identity
 where identical textures swap — but it enters through KCF box refinement
 (which precedes the cost), so the explicit cost-blend weight is measured
@@ -11,10 +11,10 @@ neutral at every value.  These tests pin both halves of that claim.
 
 import numpy as np
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.data import synthetic
-from tpu_mot.tracker import scan
-from tpu_mot.utils import metrics
+from jaxmot.config import TrackerConfig
+from jaxmot.data import synthetic
+from jaxmot.tracker import scan
+from jaxmot.utils import metrics
 
 import sys
 import os
@@ -35,7 +35,7 @@ def _run_bounce(tex_levels, appearance_weight, seed=0):
     dets = synthetic.detections_from_gt(boxes, vis, seed=seed, jitter=1.0,
                                         frame_hw=(240, 320))
     cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=240,
-                        frame_width=320, roi_impl="xla", n_init=2,
+                        frame_width=320, n_init=2,
                         appearance_weight=appearance_weight)
     _, tracks, _ = scan.track_sequence(frames, dets, cfg)
     gt = [(np.where(vis[f])[0], boxes[f, np.where(vis[f])[0]])

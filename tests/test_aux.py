@@ -4,11 +4,11 @@ injection (SURVEY.md §5)."""
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.data import synthetic
-from tpu_mot.tracker.api import pad_detections
-from tpu_mot.utils.profiling import DeviceTimer, FpsMeter
-from tpu_mot.utils.supervisor import StreamSupervisor, output_healthy
+from jaxmot.config import TrackerConfig
+from jaxmot.data import synthetic
+from jaxmot.tracker.api import pad_detections
+from jaxmot.utils.profiling import DeviceTimer, FpsMeter
+from jaxmot.utils.supervisor import StreamSupervisor, output_healthy
 
 
 def _scene(n_frames=12):
@@ -56,6 +56,58 @@ def test_supervisor_recovers_from_poisoned_state():
     assert int(out.n_alive) >= 4
 
 
+def test_supervisor_raises_on_first_compile_failure(monkeypatch):
+    """A failure to lower/compile the step is a program fault: the first
+    call raises instead of entering recovery."""
+    from jaxmot.utils import supervisor as sup_mod
+
+    class Broken:
+        def lower(self, *a, **k):
+            raise RuntimeError("lowering failed")
+
+    frames, dets = _scene(1)
+    cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=120,
+                        frame_width=160)
+    monkeypatch.setattr(sup_mod.step_mod, "step", Broken())
+    sup = StreamSupervisor(cfg)
+    d, v = pad_detections(dets[0], 8)
+    import pytest
+    with pytest.raises(RuntimeError, match="lowering failed"):
+        sup.step(frames[0], d, v)
+    assert sup.failures == 0
+
+
+def test_supervisor_recovers_from_runtime_exception(monkeypatch):
+    """After the first compile, an exception raised by a step call is a
+    runtime fault: counted once, recovered, the stream continues."""
+    from jaxmot.tracker import step as step_mod
+    from jaxmot.utils import supervisor as sup_mod
+
+    real = step_mod.step
+    calls = {"n": 0}
+
+    class Flaky:
+        def lower(self, *a, **k):
+            return real.lower(*a, **k)
+
+        def __call__(self, *a, **k):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("transient device fault")
+            return real(*a, **k)
+
+    frames, dets = _scene(6)
+    cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=120,
+                        frame_width=160, n_init=1)
+    monkeypatch.setattr(sup_mod.step_mod, "step", Flaky())
+    sup = StreamSupervisor(cfg, snapshot_every=1)
+    for f in range(6):
+        d, v = pad_detections(dets[f], 8)
+        out = sup.step(frames[f], d, v)
+    assert sup.failures == 1 and sup.last_recovery_frame == 2
+    assert int(out.n_alive) == 4
+
+
 def test_output_healthy_flags_nans():
     frames, dets = _scene(2)
     cfg = TrackerConfig(max_tracks=8, max_detections=8, frame_height=120,
@@ -96,7 +148,7 @@ def test_device_timer_and_fps_meter():
 
 
 def test_otb_precision_metric():
-    from tpu_mot.utils.metrics import otb_precision
+    from jaxmot.utils.metrics import otb_precision
     gt = np.array([[100.0, 100, 20, 40]] * 10)
     pred = gt.copy()
     pred[5:, 0] += 30  # half the frames off by 30px
@@ -107,7 +159,7 @@ def test_otb_precision_metric():
 
 
 def test_viz_draw_tracks():
-    from tpu_mot.utils.viz import draw_tracks
+    from jaxmot.utils.viz import draw_tracks
     frame = np.zeros((60, 80), np.float32)
     img = draw_tracks(frame, [(3, (40.0, 30.0, 20.0, 16.0), 0.9)])
     assert img.shape == (60, 80, 3) and img.dtype == np.uint8
@@ -115,9 +167,9 @@ def test_viz_draw_tracks():
 
 
 def test_checkpoint_pytree_roundtrip(tmp_path):
-    from tpu_mot.utils import checkpoint as ckpt
-    from tpu_mot.tracker import bank as bank_mod
-    from tpu_mot.config import TrackerConfig
+    from jaxmot.utils import checkpoint as ckpt
+    from jaxmot.tracker import bank as bank_mod
+    from jaxmot.config import TrackerConfig
 
     cfg = TrackerConfig(max_tracks=4, max_detections=4)
     bank = bank_mod.empty_bank(cfg)
@@ -133,7 +185,7 @@ def test_checkpoint_pytree_roundtrip(tmp_path):
 
 def test_checkpoint_orbax_roundtrip(tmp_path):
     import pytest
-    from tpu_mot.utils import checkpoint as ckpt
+    from jaxmot.utils import checkpoint as ckpt
     if not ckpt._has_orbax():
         pytest.skip("orbax not available")
     tree = {"a": jnp.arange(6.0).reshape(2, 3), "b": jnp.int32(3)}

@@ -12,10 +12,10 @@ detections keep their exact traces; these tests pin the opt-in behavior.
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.models.detector import dets_with_classes
-from tpu_mot.tracker import step as step_mod
-from tpu_mot.tracker.api import MultiTracker, pad_detections
+from jaxmot.config import TrackerConfig
+from jaxmot.models.detector import dets_with_classes
+from jaxmot.tracker import step as step_mod
+from jaxmot.tracker.api import MultiTracker, pad_detections
 
 
 def _cfg(**kw):
@@ -25,7 +25,6 @@ def _cfg(**kw):
     kw.setdefault("frame_width", 160)
     kw.setdefault("use_kcf", False)
     kw.setdefault("n_init", 1)
-    kw.setdefault("roi_impl", "xla")
     return TrackerConfig(**kw)
 
 
@@ -146,10 +145,10 @@ def test_strided_detector_class_aware():
     cfg.class_aware: both the grouped (cond-free) and per-frame-cond
     forms must equal run_sequence fed the explicit 6-column detections,
     and the batched chunked-serving form must match the streaming one."""
-    from tpu_mot.models.detector import YoloDetector, detect_batch
-    from tpu_mot.models.yolo import YoloSpec
-    from tpu_mot.tracker import bank as bank_mod
-    from tpu_mot.tracker import scan
+    from jaxmot.models.detector import YoloDetector, detect_batch
+    from jaxmot.models.yolo import YoloSpec
+    from jaxmot.tracker import bank as bank_mod
+    from jaxmot.tracker import scan
 
     spec = YoloSpec("yolov2-tiny", num_classes=3, input_size=64)
     det = YoloDetector.random_init(spec, max_out=8, score_thr=0.2)
@@ -192,7 +191,7 @@ def test_synthetic_class_fixture():
     class (inside the box only — background identical), 6-col detections
     carrying the object classes, and a bit-identical default path (the
     rng stream must not move for n_classes=1 — goldens depend on it)."""
-    from tpu_mot.data import synthetic
+    from jaxmot.data import synthetic
 
     # Same object, different class → frames differ inside the box only.
     frames = {}
@@ -256,9 +255,9 @@ def test_bounce_gate_and_best_assoc_matrix():
     re-overlaps the right detection); gate + assoc_box="best" (the
     Kalman hypothesis rides along in the cost) recovers identity
     completely.  Pins examples/class_aware_mot.py's demo numbers."""
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import bank as bank_mod, scan
-    from tpu_mot.utils import metrics
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import bank as bank_mod, scan
+    from jaxmot.utils import metrics
 
     h, w, n_frames, speed = 240, 320, 40, 4.0
     meet, y = 160.0, 120.0
@@ -305,7 +304,7 @@ def test_bounce_gate_and_best_assoc_matrix():
     idf1_best, idsw_best = run(True, "best")
     assert idf1_best > 0.95 and idsw_best == 0           # ...best rescues
     assert idf1_best >= idf1_gate
-    # VERDICT r3 weak #4 (default trap): the DEFAULT assoc_box="auto"
+    # Default trap: the DEFAULT assoc_box="auto"
     # must land class_aware users in the rescued regime, not the
     # gate-only phantom-coasting one.
     idf1_auto, idsw_auto = run(True, "auto")
@@ -315,8 +314,8 @@ def test_bounce_gate_and_best_assoc_matrix():
 def test_assoc_box_auto_resolution():
     """assoc_box="auto" couples to class_aware: "refined" single-class
     (the reference's appearance-blended association), "best" class-aware
-    (docs/BENCHMARKS.md r3c matrix; VERDICT r3 weak #4)."""
-    from tpu_mot.config import TrackerConfig
+    (the bounce fixture above)."""
+    from jaxmot.config import TrackerConfig
 
     assert TrackerConfig().assoc_box_resolved == "refined"
     assert TrackerConfig(class_aware=True).assoc_box_resolved == "best"
@@ -331,7 +330,7 @@ def test_track_sequence_six_col_detections():
     6-column per-frame detection lists — the buffer width follows the
     input (caught by review: the hardcoded [*, 5] buffer crashed on the
     first class-aware frame)."""
-    from tpu_mot.tracker import scan
+    from jaxmot.tracker import scan
 
     frame = np.zeros((3, 120, 160), np.float32)
     dets = [np.asarray([[40.0, 60, 16, 16, 1.0, 1.0]], np.float32),

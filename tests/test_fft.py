@@ -2,9 +2,10 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from tpu_mot.ops import fft as fft_ops
-from tpu_mot.ops.cfloat import CF, mul_conj
+from jaxmot.ops import fft as fft_ops
+from jaxmot.ops.cfloat import CF, mul_conj
 
 
 def _to_np(cf):
@@ -68,12 +69,12 @@ def test_backends_agree_on_cross_spectrum():
 
 
 def test_response_class_rfft2_selects_inverse_precision(monkeypatch):
-    """rfft2(response_class=True) must route ALL its matmuls (6 per-term
-    or 2 stacked, per TPU_MOT_FFT_STACKED) through the INVERSE
+    """rfft2(response_class=True) must route ALL 6 of its matmuls through
+    the INVERSE
     (response-rendering) precision class and be numerically identical on
-    CPU (precision is a TPU-only distinction).  Rationale in
+    CPU (the CPU computes every precision in f32).  Rationale in
     ops/fft.rfft2's docstring (r4 asymmetry finding)."""
-    n_dots = 2 if fft_ops._STACKED else 6
+    n_dots = 6
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.standard_normal((3, 64, 64)).astype(np.float32))
     base = fft_ops.rfft2(x, backend="matmul")
@@ -105,7 +106,7 @@ def test_detect_response_only_wiring(monkeypatch):
     """detect()'s gaussian_correlation output spectrum is response-only:
     its forward DFT rides the inverse class, while train()'s k^xx keeps
     the divide-class forward (the shipped fwd_high split depends on it)."""
-    from tpu_mot.ops import kcf as kcf_ops
+    from jaxmot.ops import kcf as kcf_ops
 
     rng = np.random.default_rng(12)
     t, c, s = 2, 1, 32
@@ -129,63 +130,44 @@ def test_detect_response_only_wiring(monkeypatch):
     assert calls["inv_fwd6"] == 0, calls   # train's k^xx stays divide-class
 
 
-def test_stacked_chain_matches_perterm(monkeypatch):
-    """The stacked 2-matmul formulation must agree with the 6-matmul
-    per-term chain (same dot products, different batching — only fp
-    reassociation in irfft2's fused stage-2 reduction separates them:
-    the [M | -N] concat fuses two dots into one longer contraction)
-    on both round trips and raw spectra.  Shapes cover even, mixed,
-    and BOTH odd-width parities (16x17 and 16x15 exercise the
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (16, 17), (16, 15)])
+def test_matmul_chain_shapes_vs_numpy(h, w):
+    """The matmul rFFT and its inverse against NumPy's float64 FFT on
+    even, mixed and both odd-width parities (16x17 and 16x15 exercise the
     Nyquist-less Hermitian fold from each side)."""
     rng = np.random.default_rng(21)
-    # Per-shape budgets preserve BOTH merged tests' original assertions
-    # (CLAUDE.md: tolerance budgets must not silently loosen): the
-    # deleted formulation test pinned (64,64)/(16,15) at atol 1e-5 and
-    # roundtrip 1e-4; this test's own shapes keep their 1e-4 spectra /
-    # 1e-3 roundtrip budget ((32,48) measures ~1.3e-5 — real fp
-    # reassociation, above the strict band).
-    for h, w, atol, x_atol in ((64, 64, 1e-5, 1e-4), (32, 48, 1e-4, 1e-3),
-                               (16, 17, 1e-4, 1e-3), (16, 15, 1e-5, 1e-4)):
-        x = jnp.asarray(rng.standard_normal((3, h, w)).astype(np.float32))
-        base_f = fft_ops.rfft2(x, backend="matmul")
-        base_x = fft_ops.irfft2(base_f, w, backend="matmul")
-        monkeypatch.setattr(fft_ops, "_STACKED", True)
-        got_f = fft_ops.rfft2(x, backend="matmul")
-        got_x = fft_ops.irfft2(got_f, w, backend="matmul")
-        monkeypatch.setattr(fft_ops, "_STACKED", False)
-        np.testing.assert_allclose(np.asarray(got_f.re),
-                                   np.asarray(base_f.re),
-                                   rtol=1e-5, atol=atol)
-        np.testing.assert_allclose(np.asarray(got_f.im),
-                                   np.asarray(base_f.im),
-                                   rtol=1e-5, atol=atol)
-        np.testing.assert_allclose(np.asarray(got_x), np.asarray(base_x),
-                                   rtol=1e-5, atol=atol)
-        np.testing.assert_allclose(np.asarray(got_x), np.asarray(x),
-                                   rtol=1e-4, atol=x_atol)
+    x = rng.standard_normal((3, h, w)).astype(np.float32)
+    xf = fft_ops.rfft2(jnp.asarray(x), backend="matmul")
+    np.testing.assert_allclose(_to_np(xf), np.fft.rfft2(x.astype(np.float64)),
+                               rtol=1e-4, atol=1e-3)
+    back = np.asarray(fft_ops.irfft2(xf, w, backend="matmul"))
+    np.testing.assert_allclose(back, x, rtol=1e-4, atol=1e-4)
 
 
-def test_stacked_chain_full_tracker_step(monkeypatch):
-    """KCF train+detect under the stacked chain stays within f32 parity
-    of the per-term chain (CPU tier; the TPU throughput A/B lives in
-    tools/ — this pins correctness of the rewiring)."""
-    from tpu_mot.ops import kcf as kcf_ops
+def test_precision_modes_route_each_direction(monkeypatch):
+    """Each kcf_precision mode names a (forward, inverse) dot precision;
+    the scope sets it for the trace and restores the outer mode after."""
+    seen = []
+    orig = fft_ops.jnp.einsum
 
-    rng = np.random.default_rng(22)
-    t, c, s = 3, 2, 32
-    feat = jnp.asarray(rng.standard_normal((t, c, s, s)).astype(np.float32))
-    yf = kcf_ops.make_yf(s, 2.5, 0.125, backend="matmul")
-    model = kcf_ops.train(feat, yf, 0.2, 1e-4, backend="matmul")
-    base = np.asarray(kcf_ops.detect(model, feat, 0.2, backend="matmul"))
-    monkeypatch.setattr(fft_ops, "_STACKED", True)
-    model2 = kcf_ops.train(feat, yf, 0.2, 1e-4, backend="matmul")
-    got = np.asarray(kcf_ops.detect(model2, feat, 0.2, backend="matmul"))
-    monkeypatch.setattr(fft_ops, "_STACKED", False)
-    np.testing.assert_allclose(got, base, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(model2.alphaf.re),
-                               np.asarray(model.alphaf.re),
-                               rtol=1e-3, atol=1e-3)
+    def spy(*a, precision=None):
+        seen.append(precision)
+        return orig(*a, precision=precision)
 
-
-
-
+    x = jnp.ones((1, 8, 8), jnp.float32)
+    P = fft_ops.jax.lax.Precision
+    want = {"highest": (P.HIGHEST, P.HIGHEST), "high": (P.HIGH, P.HIGH),
+            "fwd_high": (P.HIGH, P.DEFAULT),
+            "default": (P.DEFAULT, P.DEFAULT)}
+    outer = fft_ops.get_default_precision()
+    monkeypatch.setattr(fft_ops.jnp, "einsum", spy)
+    for mode, (fwd, inv) in want.items():
+        seen.clear()
+        with fft_ops.precision_scope(mode):
+            fft_ops.irfft2(fft_ops.rfft2(x, backend="matmul"), 8,
+                           backend="matmul")
+        assert seen == [fwd] * 6 + [inv] * 6, (mode, seen)
+        assert fft_ops.get_default_precision() == outer
+    with pytest.raises(ValueError):
+        with fft_ops.precision_scope("bf16"):
+            pass

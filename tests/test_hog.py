@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import KCFConfig
-from tpu_mot.data import synthetic
-from tpu_mot.ops import hog
-from tpu_mot.tracker.kcf_bank import KCFTracker
+from jaxmot.config import KCFConfig
+from jaxmot.data import synthetic
+from jaxmot.ops import hog
+from jaxmot.tracker.kcf_bank import KCFTracker
 
 
 def test_shapes_and_finiteness():

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import KalmanConfig
-from tpu_mot.ops import kalman
+from jaxmot.config import KalmanConfig
+from jaxmot.ops import kalman
 
 import oracles
 

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_mot.ops import fft as fft_ops
-from tpu_mot.ops import kcf as kcf_ops
-from tpu_mot.ops import patch as patch_ops
-from tpu_mot.ops import features as feat_ops
+from jaxmot.ops import fft as fft_ops
+from jaxmot.ops import kcf as kcf_ops
+from jaxmot.ops import patch as patch_ops
+from jaxmot.ops import features as feat_ops
 
 import oracles
 

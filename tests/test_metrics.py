@@ -1,4 +1,4 @@
-"""Hand-computed CLEAR-MOT / IDF1 fixture (VERDICT r1 weak #6).
+"""Hand-computed CLEAR-MOT / IDF1 fixture.
 
 utils.metrics.clear_mot is the judge of every MOTA claim in this repo, so
 it gets a multi-frame fixture whose FP/FN/IDSW/MOTA/IDF1 are worked out on
@@ -8,7 +8,7 @@ installable in this environment (no network), so paper is the oracle.
 
 import numpy as np
 
-from tpu_mot.utils.metrics import clear_mot
+from jaxmot.utils.metrics import clear_mot
 
 
 def _box(x, y):
@@ -104,7 +104,7 @@ def test_clear_empty_frames_and_no_hyp():
 # ---------------------------------------------------------------------
 
 def _hota_seq(frames):
-    from tpu_mot.utils.metrics import hota
+    from jaxmot.utils.metrics import hota
     return hota(*zip(*frames))
 
 
@@ -173,7 +173,7 @@ def test_hota_localization_sweep():
 
 
 def test_hota_empty_inputs():
-    from tpu_mot.utils.metrics import hota
+    from jaxmot.utils.metrics import hota
     e = ([], np.zeros((0, 4)))
     assert hota([e], [e])["hota"] == 1.0          # vacuously perfect
     g = ([0], [_box(10, 10)])

@@ -9,9 +9,9 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from tpu_mot.data import mot as mot_data
-from tpu_mot.data import synthetic
-from tpu_mot.utils import metrics
+from jaxmot.data import mot as mot_data
+from jaxmot.data import synthetic
+from jaxmot.utils import metrics
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def mot_dir(tmp_path_factory):
 
 
 def test_cli_mot_sequence_dir(mot_dir, tmp_path):
-    from tpu_mot.cli import main
+    from jaxmot.cli import main
 
     out = str(tmp_path / "res.txt")
     rc = main(["mot", "--seq", mot_dir, "--out", out, "--score",
@@ -69,7 +69,7 @@ def test_cli_mot_sequence_dir(mot_dir, tmp_path):
 
 def test_det_reader_against_native(mot_dir):
     """Python and C++ det.txt parsers agree."""
-    from tpu_mot import native
+    from jaxmot import native
 
     path = os.path.join(mot_dir, "det", "det.txt")
     py = mot_data.load_mot_dets(path)
@@ -91,8 +91,8 @@ def test_gt_reader(mot_dir):
 
 
 def test_video_roundtrip_and_chunked_pipeline(tmp_path):
-    from tpu_mot.data.video import read_video, ChunkedVideoPipeline
-    from tpu_mot.utils.viz import write_video
+    from jaxmot.data.video import read_video, ChunkedVideoPipeline
+    from jaxmot.utils.viz import write_video
 
     frames = (np.random.default_rng(0).random((9, 48, 64)) * 255).astype(
         np.uint8)
@@ -107,11 +107,11 @@ def test_video_roundtrip_and_chunked_pipeline(tmp_path):
 
 
 def test_cli_eval_aggregate(mot_dir, tmp_path, capsys):
-    """`tpu_mot eval --root` runs every sequence under a root and prints
+    """`jaxmot eval --root` runs every sequence under a root and prints
     per-sequence + OVERALL CLEAR-MOT rows (error-sum aggregation)."""
     import json
     import shutil
-    from tpu_mot.cli import main
+    from jaxmot.cli import main
 
     root = tmp_path / "train"
     root.mkdir()
@@ -138,16 +138,16 @@ def test_cli_eval_aggregate(mot_dir, tmp_path, capsys):
 
 
 def test_cli_video_strided_detector(tmp_path, capsys):
-    """`tpu_mot video --det-stride N`: detect+track a tiny clip with the
+    """`jaxmot video --det-stride N`: detect+track a tiny clip with the
     detector running every Nth frame inside the scanned cond."""
     import numpy as np
-    from tpu_mot.cli import main
+    from jaxmot.cli import main
 
     frames = (np.random.default_rng(0).random((6, 96, 128)) * 255).astype(
         np.uint8)
     path = str(tmp_path / "clip.mp4")
     try:
-        from tpu_mot.utils.viz import write_video
+        from jaxmot.utils.viz import write_video
         write_video(path, [(f, []) for f in frames], fps=10)
     except Exception:
         import pytest

@@ -4,7 +4,7 @@ gray conversion, frame ring (SURVEY.md §2 native-component checklist)."""
 import numpy as np
 import pytest
 
-from tpu_mot import native
+from jaxmot import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -14,7 +14,7 @@ def built():
 
 
 def test_assign_exact_vs_scipy():
-    from tpu_mot.ops.assignment import scipy_assign, assignment_cost
+    from jaxmot.ops.assignment import scipy_assign, assignment_cost
 
     rng = np.random.default_rng(0)
     for shape in [(5, 5), (12, 7), (7, 12), (40, 40), (1, 1)]:
@@ -82,7 +82,7 @@ import pytest
 def test_stream_scheduler(backend, monkeypatch):
     """Multi-stream batch assembly: per-stream rings, repeat-last policy,
     drop accounting — native and pure-Python backends behave the same."""
-    from tpu_mot import native as native_mod
+    from jaxmot import native as native_mod
 
     if backend == "native" and not native_mod.ensure_built():
         pytest.skip("toolchain unavailable")
@@ -131,7 +131,7 @@ def test_stream_scheduler_threaded_producers():
     produces complete batches and per-stream frames arrive in order."""
     import threading
 
-    from tpu_mot import native as native_mod
+    from jaxmot import native as native_mod
 
     if not native_mod.ensure_built():
         pytest.skip("toolchain unavailable")

@@ -7,19 +7,19 @@ must be computed ONCE and reused by step 8 (no second [T] forward).
 Spies on ops.fft.rfft2 at trace time (configs are jit statics; the
 traced-Python wrapper records every transform's shape + class).  CPU
 numerics are class-independent, so goldens/tracking parity is covered
-elsewhere — this pins the WIRING the TPU throughput win depends on
-(tools/bench_variants_r5.log: fhog31+3-scale 2309.6 -> 2612.8 fps).
+elsewhere — this pins the WIRING that saves the off-scale spectra the
+divide-class precision.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import KCFConfig, TrackerConfig
-from tpu_mot.data import synthetic
-from tpu_mot.ops import fft as fft_ops
-from tpu_mot.tracker import bank as bank_mod
-from tpu_mot.tracker import step as step_mod
-from tpu_mot.tracker.api import pad_detections
+from jaxmot.config import KCFConfig, TrackerConfig
+from jaxmot.data import synthetic
+from jaxmot.ops import fft as fft_ops
+from jaxmot.tracker import bank as bank_mod
+from jaxmot.tracker import step as step_mod
+from jaxmot.tracker.api import pad_detections
 
 
 def _trace_step(monkeypatch, **cfg_kw):

@@ -4,9 +4,9 @@ moving textured object and match the NumPy oracle trajectory."""
 
 import numpy as np
 
-from tpu_mot.data import synthetic
-from tpu_mot.tracker.kcf_bank import KCFTracker
-from tpu_mot.config import KCFConfig
+from jaxmot.data import synthetic
+from jaxmot.tracker.kcf_bank import KCFTracker
+from jaxmot.config import KCFConfig
 
 import oracles
 
@@ -55,8 +55,8 @@ def test_scan_otb_matches_per_frame_wrapper():
     """run_otb_sequence (one device program per clip) must produce the
     same trajectory as the per-frame KCFTracker.update loop."""
     import jax.numpy as jnp
-    from tpu_mot.tracker import kcf_bank
-    from tpu_mot.ops import patch as patch_ops
+    from jaxmot.tracker import kcf_bank
+    from jaxmot.ops import patch as patch_ops
 
     objs = [synthetic.SyntheticObject(cx=160, cy=120, w=28, h=24,
                                       vx=2.0, vy=1.2)]
@@ -86,8 +86,8 @@ def test_otb_detect_site_precision_parity():
     refined-site default on a moving target (the same-frame spatial
     approximation must not cost tracking precision)."""
     import jax.numpy as jnp
-    from tpu_mot.ops import patch as patch_ops
-    from tpu_mot.tracker import kcf_bank
+    from jaxmot.ops import patch as patch_ops
+    from jaxmot.tracker import kcf_bank
 
     objs = [synthetic.SyntheticObject(cx=100, cy=90, w=30, h=26,
                                       vx=3.0, vy=-2.0)]

@@ -2,10 +2,9 @@
 composition, param-tree compatibility, gray fast path, and guard rails.
 
 The stem is the exact MLPerf-style rewrite of conv+pool+conv+pool onto
-the (H/4)² grid (models/yolo._s2d_scatter); on the v5e it measured
-0.732 vs 2.098 ms standalone (tools/profile_stem_r5.log).  Everything
-here runs CPU f32, where the only direct-vs-s2d difference is conv
-accumulation order.
+the (H/4)² grid (models/yolo._s2d_scatter).  Everything here runs CPU
+f32, where the only direct-vs-s2d difference is conv accumulation
+order.
 """
 
 import dataclasses
@@ -15,8 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_mot.models.yolo import (ConvBlock, YoloSpec, _scatter_kernel,
-                                 _stem_s2d4, build_model)
+from jaxmot.models.yolo import (YoloSpec, _Pass, _maxpool,
+                                _scatter_kernel, _stem_s2d4, apply,
+                                init_variables)
 
 VARIANTS = ["yolov3-tiny", "yolov2-tiny", "yolov2"]
 
@@ -33,10 +33,8 @@ def test_param_tree_identical(name):
     """stem="s2d4" must share the canonical tree byte-for-byte (darknet
     loads and checkpoints are stem-agnostic)."""
     direct, s2d = _specs(name)
-    vd = build_model(direct).init(jax.random.PRNGKey(0),
-                                  jnp.zeros((1, 96, 96, 3)))
-    vs = build_model(s2d).init(jax.random.PRNGKey(0),
-                               jnp.zeros((1, 96, 96, 3)))
+    vd = init_variables(direct, jax.random.PRNGKey(0), (1, 96, 96, 3))
+    vs = init_variables(s2d, jax.random.PRNGKey(0), (1, 96, 96, 3))
     pd = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), vd)
     ps = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), vs)
     assert pd == ps
@@ -47,12 +45,11 @@ def test_heads_match_direct(name):
     """Full-model heads from the s2d4 stem match the direct composition
     on the SAME parameters (f32; conv accumulation-order class)."""
     direct, s2d = _specs(name)
-    var = build_model(direct).init(jax.random.PRNGKey(1),
-                                   jnp.zeros((1, 96, 96, 3)))
+    var = init_variables(direct, jax.random.PRNGKey(1), (1, 96, 96, 3))
     x = jnp.asarray(np.random.default_rng(0).random((2, 96, 96, 3)),
                     jnp.float32)
-    hd = build_model(direct).apply(var, x)
-    hs = build_model(s2d).apply(var, x)
+    hd = apply(var, x, direct)
+    hs = apply(var, x, s2d)
     for a, b in zip(hd, hs):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-4)
@@ -60,12 +57,10 @@ def test_heads_match_direct(name):
 
 def test_stem_block_exact():
     """The isolated stem (conv 3→16 + pool + conv 16→32 + pool) matches
-    the direct composition at conv-accumulation tolerance — the same
-    contract tools/profile_stem.py asserts on the TPU at HIGHEST."""
+    the direct composition at conv-accumulation tolerance."""
     rng = np.random.default_rng(2)
     spec = YoloSpec("yolov3-tiny", num_classes=1, stem="s2d4")
-    model = build_model(spec)
-    var = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 96, 96, 3)))
+    var = init_variables(spec, jax.random.PRNGKey(2), (1, 96, 96, 3))
     x = jnp.asarray(rng.random((2, 64, 64, 3)), jnp.float32)
 
     p0 = var["params"]["ConvBlock_0"]
@@ -84,28 +79,16 @@ def test_stem_block_exact():
             dimension_numbers=("NHWC", "HWIO", "NHWC"))
 
     def pool(y):
-        import flax.linen as nn
-        return nn.max_pool(y, (2, 2), strides=(2, 2), padding="SAME")
+        # Plain 2x2 stride-2 max pool (independent of yolo._maxpool).
+        b, h, w, c = y.shape
+        return y.reshape(b, h // 2, 2, w // 2, 2, c).max(axis=(2, 4))
 
     ref = pool(bn_lrelu(conv(x, p0["conv"]["kernel"]), p0, s0))
     ref = pool(bn_lrelu(conv(ref, p1["conv"]["kernel"]), p1, s1))
 
-    def run_stem(mdl, v, xin):
-        # Apply just the stem by running the full model and comparing
-        # head-level is done elsewhere; here exercise the ConvBlock s2d
-        # path directly with the shared params.
-        cb = lambda f, k=3, **kw: ConvBlock(f, k, **kw)
-        import flax.linen as nn
-
-        class Stem(nn.Module):
-            @nn.compact
-            def __call__(self, y):
-                return _stem_s2d4(y, cb, 16, 32, False)
-
-        return Stem().apply({"params": v["params"],
-                             "batch_stats": v["batch_stats"]}, xin)
-
-    got = run_stem(model, var, x)
+    # Exercise the s2d stem blocks directly with the shared params.
+    got = _stem_s2d4(_Pass(spec, var["params"], var["batch_stats"]), x,
+                     16, 32)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
@@ -125,12 +108,11 @@ def test_gray_fast_path_matches_broadcast():
     """Feeding a single-channel frame through the s2d stem equals the
     direct model on the 3-channel broadcast (kernel-fold exactness)."""
     direct, s2d = _specs("yolov3-tiny")
-    var = build_model(direct).init(jax.random.PRNGKey(4),
-                                   jnp.zeros((1, 96, 96, 3)))
+    var = init_variables(direct, jax.random.PRNGKey(4), (1, 96, 96, 3))
     g = jnp.asarray(np.random.default_rng(4).random((2, 96, 96)),
                     jnp.float32)
-    hd = build_model(direct).apply(var, jnp.repeat(g[..., None], 3, -1))
-    hs = build_model(s2d).apply(var, g[..., None])
+    hd = apply(var, jnp.repeat(g[..., None], 3, -1), direct)
+    hs = apply(var, g[..., None], s2d)
     for a, b in zip(hd, hs):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-4)
@@ -139,7 +121,7 @@ def test_gray_fast_path_matches_broadcast():
 def test_detect_batch_stem_agrees():
     """detect_batch end-to-end (gray frames): same detections from the
     stem and direct specs with shared params."""
-    from tpu_mot.models.detector import YoloDetector, detect_batch
+    from jaxmot.models.detector import YoloDetector, detect_batch
     direct, s2d = _specs("yolov3-tiny")
     det = YoloDetector.random_init(direct, seed=5)
     frames = (np.random.default_rng(5).random((2, 240, 320)) * 255
@@ -158,20 +140,21 @@ def test_guards():
         YoloSpec("yolov3-tiny", stem="s2d8")
     with pytest.raises(ValueError, match="strided-conv"):
         YoloSpec("yolov3", stem="s2d4")
+    with pytest.raises(ValueError, match="unknown dtype"):
+        YoloSpec("yolov3-tiny", dtype="int4")
     with pytest.raises(ValueError, match="int8"):
         YoloSpec("yolov3-tiny", stem="s2d4", dtype="int8")
     # Inference-only: train=True through the stem raises.
     spec = YoloSpec("yolov3-tiny", num_classes=1, stem="s2d4")
-    model = build_model(spec)
     with pytest.raises(ValueError, match="inference-only"):
-        model.init(jax.random.PRNGKey(0), jnp.zeros((1, 96, 96, 3)),
-                   train=True)
+        init_variables(spec, jax.random.PRNGKey(0), (1, 96, 96, 3),
+                       train=True)
 
 
 def test_auto_stem_resolution():
     """stem="auto" (the default) = s2d4 at inference on supported
     variants, direct for training / int8 / yolov3."""
-    from tpu_mot.models.yolo import resolved_stem
+    from jaxmot.models.yolo import resolved_stem
 
     s = YoloSpec("yolov3-tiny", num_classes=4)
     assert s.stem == "auto"
@@ -197,7 +180,6 @@ def test_auto_stem_odd_shape_runs_direct():
     needs /32 for its route concat, so every valid size is /4 there and
     the fallback is moot)."""
     spec = YoloSpec("yolov2-tiny", num_classes=2)
-    m = build_model(spec)
-    var = m.init(jax.random.PRNGKey(0), jnp.zeros((1, 96, 96, 3)))
-    out = m.apply(var, jnp.zeros((1, 98, 98, 3)))
+    var = init_variables(spec, jax.random.PRNGKey(0), (1, 96, 96, 3))
+    out = apply(var, jnp.zeros((1, 98, 98, 3)), spec)
     assert all(np.isfinite(np.asarray(h)).all() for h in out)

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import optax
 
-from tpu_mot.models.yolo import YoloSpec, YOLOV2_TINY_ANCHORS
-from tpu_mot.parallel import train
+from jaxmot.models.yolo import YoloSpec, YOLOV2_TINY_ANCHORS
+from jaxmot.parallel import train
 
 
 def _toy_batch(rng, b=4, s=64):
@@ -91,8 +91,8 @@ def test_build_targets_vectorized_matches_loop_oracle():
 
 
 def test_detection_map_hand_cases():
-    """VOC AP on hand-built cases with known values (VERDICT r1 next #9)."""
-    from tpu_mot.utils.metrics import detection_map
+    """VOC AP on hand-built cases with known values."""
+    from jaxmot.utils.metrics import detection_map
 
     g = [30.0, 30.0, 10.0, 10.0]
     far = [80.0, 80.0, 10.0, 10.0]
@@ -120,12 +120,12 @@ def test_detection_map_hand_cases():
 
 
 def test_training_lifts_map():
-    """Detector quality signal beyond the loss (VERDICT r1 next #9): on
+    """Detector quality signal beyond the loss: on
     the toy overfit task, mAP@0.5 goes from 0.0 (random init detects
     nothing above threshold) to a real score.  Measured 0.55 after 150
     adam steps; asserted loosely for CI stability."""
-    from tpu_mot.models.detector import detect_batch
-    from tpu_mot.utils.metrics import detection_map
+    from jaxmot.models.detector import detect_batch
+    from jaxmot.utils.metrics import detection_map
 
     # bn_momentum=0.9: at the darknet default 0.99 the BN running stats
     # need thousands of steps to converge to the batch statistics the

@@ -13,11 +13,11 @@ the mass-birth (frame-0) deferred-init path.
 import numpy as np
 import jax.numpy as jnp
 
-from tpu_mot.config import TrackerConfig
-from tpu_mot.data import synthetic
-from tpu_mot.ops import fft as fft_ops
-from tpu_mot.ops import kcf as kcf_ops
-from tpu_mot.utils import metrics
+from jaxmot.config import TrackerConfig
+from jaxmot.data import synthetic
+from jaxmot.ops import fft as fft_ops
+from jaxmot.ops import kcf as kcf_ops
+from jaxmot.utils import metrics
 
 from test_tracker import _make_scene, _run_ours
 

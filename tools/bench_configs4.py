@@ -1,20 +1,20 @@
-"""BASELINE configs[4] single-chip slice (VERDICT r2 next #2): 8 synthetic
+"""BASELINE configs[4] single-device slice: 8 synthetic
 1080p streams through the fused detect→track serving step on ONE chip —
 both detector modes:
 
   * dp     — per-shard data-parallel detector (zero collectives);
   * shared — the all-gather → one batched YOLO → scatter path
              (parallel/serve.shared_detector_detect) on a 1-device
-             Mesh(("stream",)) where the gather is an ICI no-op but the
+             Mesh(("stream",)) where the gather is a no-op but the
              collective program compiles and runs on real hardware.
 
 Reports per-stage ms (detector-only, tracker-only) and aggregate
 frames/sec/chip for the fused step in each mode, with the dependent-chain
-marginal methodology (see bench.py docstring).  The v5e-8 version of this
-config shards the same program over 8 chips; this records what one chip
-sustains.
+marginal methodology (see bench.py docstring).  The multi-device version
+shards the same program over the stream mesh (chip_smoke.py --cards 4);
+this records what one device sustains.
 
-Run on the TPU:  python tools/bench_configs4.py
+Run:  python tools/bench_configs4.py
 Prints one JSON line per mode.
 """
 
@@ -41,12 +41,12 @@ def main() -> None:
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from tpu_mot.config import TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.models.detector import YoloDetector, detect_batch
-    from tpu_mot.models.yolo import YoloSpec
-    from tpu_mot.parallel import serve
-    from tpu_mot.tracker import step as step_mod
+    from jaxmot.config import TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.models.detector import YoloDetector, detect_batch
+    from jaxmot.models.yolo import YoloSpec
+    from jaxmot.parallel import serve
+    from jaxmot.tracker import step as step_mod
 
     height, width = 1080, 1920
     n_streams = 8
@@ -65,7 +65,7 @@ def main() -> None:
         [np.roll(frames_u8, s * 7, axis=2) for s in range(n_streams)],
         axis=1))
 
-    _stem = os.environ.get("TPU_MOT_STEM", "direct")
+    _stem = os.environ.get("JAXMOT_STEM", "direct")
     spec = YoloSpec("yolov3-tiny", num_classes=80, stem=_stem)
     det = YoloDetector.random_init(spec, max_out=max_dets, score_thr=0.3)
     cfg = TrackerConfig(max_tracks=128, max_detections=max_dets,
@@ -120,9 +120,8 @@ def main() -> None:
             "aggregate_fps_per_chip": round(n_streams * 1e3 / ms, 1),
         }), flush=True)
 
-    # --- fast-detector combo + strided serving (r3b) -------------------
-    # The stage split shows the detector owns 7.5 of the 9.2 ms step;
-    # these are the production levers: bf16 convs + Fast NMS, and the
+    # --- fast-detector combo + strided serving -------------------------
+    # The detector's production levers: bf16 convs + Fast NMS, and the
     # strided-detector chunk (serve.multi_stream_sequence_strided,
     # detector on every 4th multistream frame).
     spec_fast = YoloSpec("yolov3-tiny", num_classes=80, dtype="bfloat16",

@@ -1,9 +1,9 @@
 """Hard-fixture accuracy benchmark: detector dropouts + false positives
 + heavy jitter at the bench scale (1080p, 128 objects).
 
-Motivation (r5, tools/hota_ceiling_r5.log): the canonical bench fixture
-is SATURATED — the tracker's HOTA 0.923 sits above the late-birth
-oracle ceiling 0.9142, so the bench cannot measure accuracy work.  This
+Motivation (tools/hota_ceiling.py): the canonical bench fixture is
+SATURATED — the tracker's HOTA sits above the late-birth oracle
+ceiling, so the bench cannot measure accuracy work.  This
 fixture injects the failure modes the KCF+SORT fusion exists for
 (SURVEY §5 fault-injection hook): 25% per-detection dropout, ~4 false
 positives/frame, 2 px center jitter.  Tiers:
@@ -19,8 +19,8 @@ positives/frame, 2 px center jitter.  Tiers:
   shipped+tsu output_max_tsu=1: emit only tracks matched this frame
               (the noisy-detector operating point train_e2e_mota found)
 
-Run on TPU (or CPU with TPU_MOT_HARD_SMALL=1 smoke shapes); one JSON
-line per tier; log tools/bench_hard_fixture_r5.log.
+Run:  python tools/bench_hard_fixture.py  (JAXMOT_HARD_SMALL=1 for
+smoke shapes on the CPU); one JSON line per tier.
 """
 
 import json
@@ -68,14 +68,14 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tpu_mot.config import TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import bank as bank_mod
-    from tpu_mot.tracker import scan
-    from tpu_mot.tracker.api import pad_detections
-    from tpu_mot.utils import metrics
+    from jaxmot.config import TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import bank as bank_mod
+    from jaxmot.tracker import scan
+    from jaxmot.tracker.api import pad_detections
+    from jaxmot.utils import metrics
 
-    small = os.environ.get("TPU_MOT_HARD_SMALL", "0") == "1"
+    small = os.environ.get("JAXMOT_HARD_SMALL", "0") == "1"
     height, width = (240, 320) if small else (1080, 1920)
     n_obj = 16 if small else 128
     n_frames = 24 if small else 64

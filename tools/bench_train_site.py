@@ -6,7 +6,7 @@ the reference-faithful heavy config (fHOG-31 + 3-scale).
 Same dependent-chain marginal methodology as bench.py; each row reports
 fps AND MOTA sanity so a fast-but-broken mode cannot win.
 
-Run on the TPU:  python tools/bench_train_site.py
+Run:  python tools/bench_train_site.py
 Prints one JSON line per (config, mode).
 """
 
@@ -24,12 +24,12 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from tpu_mot.config import KCFConfig, TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import bank as bank_mod
-    from tpu_mot.tracker import scan
-    from tpu_mot.tracker.api import pad_detections
-    from tpu_mot.utils import metrics
+    from jaxmot.config import KCFConfig, TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import bank as bank_mod
+    from jaxmot.tracker import scan
+    from jaxmot.tracker.api import pad_detections
+    from jaxmot.utils import metrics
 
     height, width = 1080, 1920
     n_obj, n_frames, reps = 128, 64, 5

@@ -2,8 +2,7 @@
 tools/hota_ceiling.py, which settled the CANONICAL fixture: saturated).
 
 bench_hard_fixture reports shipped HOTA 0.8738 on the stress fixture
-(25% dropout, ~4 FP/frame, 2 px jitter @1080p/128 obj) and its
-docs/BENCHMARKS.md section claims "real headroom here" — but the only
+(25% dropout, ~4 FP/frame, 2 px jitter @1080p/128 obj), but the only
 ceiling measured there is the NO-COASTING oracle (0.646), which the
 tracker already beats by +0.23.  What a streaming tracker can actually
 achieve is bounded by coasting-aware oracles.  Tiers, all host-side
@@ -30,7 +29,7 @@ delay cost under 25% dropout; (coast_gt_n2 - shipped 0.8738) = what
 imperfect motion/FP handling actually costs; (coast_gt_n1 -
 coast_hold_n1) = the value of motion-aware coasting over box-holding.
 
-Pure metric-layer numpy; runs on CPU.  Log: tools/hard_ceiling_r5d.log.
+Pure metric-layer numpy; runs on CPU.
 """
 
 import json
@@ -58,8 +57,8 @@ def _iou_mat(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def main() -> None:
-    from tpu_mot.data import synthetic
-    from tpu_mot.utils import metrics
+    from jaxmot.data import synthetic
+    from jaxmot.utils import metrics
 
     # Exactly bench_hard_fixture.py's construction (seeds, knobs).
     height, width = 1080, 1920
@@ -131,13 +130,13 @@ def main() -> None:
     g1 = score(coast_tier(1, "gt"), "coast_gt_n1")
     g2 = score(coast_tier(2, "gt"), "coast_gt_n2")
 
-    shipped = 0.8738  # bench_hard_fixture_r5b.log shipped-defaults row
+    shipped = 0.8738  # bench_hard_fixture.py shipped-defaults row
     print(json.dumps({
         "tier": "attribution",
         "n_init2_birth_cost": round(float(g1["hota"] - g2["hota"]), 4),
         "tracker_gap_vs_n2_ceiling": round(
             float(g2["hota"]) - shipped, 4),
-        "note": "shipped = bench_hard_fixture_r5b.log defaults row"},
+        "note": "shipped = bench_hard_fixture.py defaults row"},
     ), flush=True)
 
 

@@ -1,10 +1,10 @@
-"""Bench-fixture HOTA ceiling + attribution (VERDICT r4 next #4).
+"""Bench-fixture HOTA ceiling + attribution.
 
-The canonical bench reports HOTA 0.923 (DetA 0.9215 / LocA 0.9418) on a
-fixture whose detections are jittered GT (sigma 1 px center, 2% size,
-no drops/FPs) and whose births initialize one frame late by design —
-but the fixture-intrinsic ceiling was never measured, so it was unknown
-whether the missing 0.077 is tracker error or fixture noise.
+bench.py scores the tracker on a fixture whose detections are jittered
+GT (sigma 1 px center, 2% size, no drops/FPs) and whose births
+initialize one frame late by design.  This measures the fixture's own
+ceiling, so the gap between it and bench.py's HOTA reads as tracker
+error rather than fixture noise.
 
 Tiers, all through the SAME metrics.hota scorer as bench.py:
   gt_fed        GT boxes + GT ids            → scorer sanity (must be 1.0)
@@ -12,11 +12,14 @@ Tiers, all through the SAME metrics.hota scorer as bench.py:
                 perfect associator scores given the detection jitter
   oracle_late   + first visible frame of each object dropped → adds the
                 tracker's designed one-frame-late birth
-  (tracker)     bench.py's own number, for the gap statement
+  (tracker)     bench.py's HOTA, passed as --tracker-hota, for the gap
+                statement
 
-Pure metric-layer numpy; runs on CPU. Log: tools/hota_ceiling_r5.log.
+Pure metric-layer numpy; runs on CPU:
+    python tools/hota_ceiling.py [--tracker-hota H]
 """
 
+import argparse
 import json
 import os
 import sys
@@ -27,8 +30,12 @@ import numpy as np
 
 
 def main() -> None:
-    from tpu_mot.data import synthetic
-    from tpu_mot.utils import metrics
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tracker-hota", type=float, default=None,
+                    help="bench.py's HOTA on the same fixture")
+    args = ap.parse_args()
+    from jaxmot.data import synthetic
+    from jaxmot.utils import metrics
 
     # Exactly bench.py's fixture construction (seeds, shapes, knobs).
     height, width = 1080, 1920
@@ -83,15 +90,14 @@ def main() -> None:
         late.append((ids[keep], dets_list[f][:, :4][keep].copy()))
     late_h = score(late, "oracle_late_birth")
 
-    bench_hota = 0.923  # BENCH_r04.json driver capture
-    print(json.dumps({
+    attribution = {
         "tier": "attribution",
         "fixture_ceiling_hota": round(float(ceil["hota"]), 4),
-        "late_birth_cost": round(float(ceil["hota"] - late_h["hota"]), 4),
-        "tracker_gap_vs_late_ceiling": round(
-            float(late_h["hota"]) - bench_hota, 4),
-        "note": "tracker gap uses BENCH_r04 driver HOTA 0.923"}),
-        flush=True)
+        "late_birth_cost": round(float(ceil["hota"] - late_h["hota"]), 4)}
+    if args.tracker_hota is not None:
+        attribution["tracker_gap_vs_late_ceiling"] = round(
+            float(late_h["hota"]) - args.tracker_hota, 4)
+    print(json.dumps(attribution), flush=True)
 
 
 if __name__ == "__main__":

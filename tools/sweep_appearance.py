@@ -1,7 +1,7 @@
 """Does the appearance term (KCF response sampled at detection centers,
 blended into the association cost) actually earn its default weight?
 
-VERDICT r2 weak #3: the r2 sweep found appearance_weight NEUTRAL on the
+An earlier sweep found appearance_weight NEUTRAL on the
 generic occlusion fixture, and 0.2 was shipped "for parity" with no
 evidence it ever fixes an assignment.  This sweep builds scenarios where
 IoU-only association DEMONSTRABLY mis-assigns — motion-reversal bounces
@@ -61,10 +61,10 @@ def _cross_tracks(n, meet=160.0, speed=5.0, y=120.0):
 
 
 def _run(scenario, aw, seed):
-    from tpu_mot.config import TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import scan
-    from tpu_mot.utils import metrics as metrics_mod
+    from jaxmot.config import TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import scan
+    from jaxmot.utils import metrics as metrics_mod
 
     n = 40
     h, w = 240, 320
@@ -85,7 +85,7 @@ def _run(scenario, aw, seed):
     dets = synthetic.detections_from_gt(boxes, det_vis, seed=seed,
                                         jitter=1.0, frame_hw=(h, w))
     cfg = TrackerConfig(max_tracks=8, max_detections=8,
-                        frame_height=h, frame_width=w, roi_impl="xla",
+                        frame_height=h, frame_width=w,
                         n_init=2, appearance_weight=aw)
     _, tracks, _ = scan.track_sequence(frames, dets, cfg)
     gt = [(np.where(vis[f])[0], boxes[f, np.where(vis[f])[0]])

@@ -1,6 +1,6 @@
 """Sweep confidence_mode / min_psr / appearance_weight on crowded synthetic
 scenes with occlusions (detection dropouts) and false positives, to pick
-validated shipped defaults (VERDICT r1 next #5).
+validated shipped defaults.
 
 Run on CPU:  python tools/sweep_defaults.py [--quick]
 Prints one JSON line per configuration and a final "BEST" line.
@@ -22,10 +22,10 @@ import numpy as np  # noqa: E402
 
 
 def run_one(mode, thr, aw, seeds, n_frames, n_obj):
-    from tpu_mot.config import TrackerConfig
-    from tpu_mot.data import synthetic
-    from tpu_mot.tracker import scan
-    from tpu_mot.utils import metrics as metrics_mod
+    from jaxmot.config import TrackerConfig
+    from jaxmot.data import synthetic
+    from jaxmot.tracker import scan
+    from jaxmot.utils import metrics as metrics_mod
 
     h, w = 320, 480
     motas, idf1s, idsws = [], [], []
@@ -48,7 +48,7 @@ def run_one(mode, thr, aw, seeds, n_frames, n_obj):
             fp_per_frame=2.0, frame_hw=(h, w))
         cfg = TrackerConfig(
             max_tracks=2 * n_obj, max_detections=2 * n_obj,
-            frame_height=h, frame_width=w, roi_impl="xla",
+            frame_height=h, frame_width=w,
             confidence_mode=mode, min_psr=thr, appearance_weight=aw)
         _, tracks, _ = scan.track_sequence(frames, dets, cfg)
         gt = [(np.where(vis[f])[0], boxes[f, np.where(vis[f])[0]])
